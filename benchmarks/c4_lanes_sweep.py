@@ -1,4 +1,4 @@
-"""c4 rate with fused event kernel + shell merge, vs lane-pool size."""
+"""c4 rate with shell merge, vs lane-pool size."""
 
 import time
 

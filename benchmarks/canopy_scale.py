@@ -1,29 +1,19 @@
-"""RAMI-scale canopy benchmark: 1e6 leaf disks (VERDICT r1, Missing #4).
+"""RAMI-scale canopy benchmark: 1e6 leaf disks.
 
 Builds an actual-canopy-sized scene — ``--instances`` sphere-crown
 instances of a ``--leaves-per-tree``-disk canonical cloud, Morton-ordered
-— and measures canopy-tracer samples/s. Target (VERDICT): >0.05 M
-samples/s at 1e6 disks on TPU without OOM. Memory scales with leaf count
-(HBM tables + VMEM tiles), not rays x leaves: the Pallas sweep streams
-[1024 x 1024] tiles with block-sphere culling
-(``ops/pallas/leaf_intersect.py``), the XLA fallback scans 512-leaf
-chunks (``ops/canopy._scan_chunks``).
+— and measures canopy-tracer samples/s (target: >0.05 M samples/s at 1e6
+disks without running out of device memory). Memory scales with leaf
+count, not rays x leaves: the sweep scans 512-leaf chunks
+(``ops/canopy._scan_chunks``), and instanced clouds store the canonical
+cloud once and scan the instance offsets.
 
 Usage: python benchmarks/canopy_scale.py [--instances 500]
        [--leaves-per-tree 2000] [--spp 1024] [--cpu] [--instanced]
 
-Measured on one v5e chip (2026-08, 500 sphere crowns x 2000 disks = 1e6,
-19 pixels, spp 1024):
-
-- ``--instanced`` (virtual-block sweeps, canonical cloud stored once +
-  per-instance bounding-sphere culling): **56.1 k samples/s** — above the
-  0.05 M target (vs_target 1.12), 0.35 s/render, compile 133 s.
-- flattened (all 1e6 disks materialized): 1.8 k samples/s at spp 64 —
-  the dense sweep's per-bounce cost is ~B x N regardless of culling when
-  the lane pool is tiny (19 x 64 = 1216 lanes cannot form spatially
-  coherent Morton blocks), and at fixed N the dense rate is
-  lane-count-independent (~43 Gpair/s / (8 bounces x 1e6) ~ 5 k/s
-  ceiling). Instancing, not flattening, is the 1e6-disk path.
+GPU rates: not measured. At fixed leaf count the dense sweep's
+per-bounce cost is ~B x N, so instancing, not flattening, is the 1e6-disk
+path.
 """
 
 from __future__ import annotations

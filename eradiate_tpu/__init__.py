@@ -1,11 +1,11 @@
-"""eradiate_tpu — TPU-native radiative transfer framework.
+"""eradiate_tpu — radiative transfer for Earth observation in JAX.
 
-A from-scratch JAX/XLA/Pallas re-implementation of the capabilities of
+A from-scratch JAX/XLA re-implementation of the capabilities of
 Eradiate (Monte Carlo radiative transfer for Earth observation): where the
 reference drives a C++ Mitsuba kernel through a serial spectral loop
 (``src/eradiate/kernel/_render.py:433-468``), this framework runs a
 device-resident wavefront path tracer batched over
-{spectral index x pixel x sample}, sharded across TPU meshes.
+{spectral index x pixel x sample}, sharded across device meshes.
 
 Public surface mirrors the reference's: ``set_mode``/``mode``, ``run``,
 experiment classes, scene-element factories, units.

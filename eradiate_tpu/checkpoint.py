@@ -2,7 +2,7 @@
 
 SURVEY §5: the reference has no mid-render checkpointing (granularity is
 the experiment; ``experiments/_core.py:845-850``) and spectral-bin
-accumulator checkpointing is the natural TPU-build equivalent. This module
+accumulator checkpointing is the natural equivalent here. This module
 persists per-measure raw accumulators after every spectral chunk, so a
 killed 300k-wavelength mono sweep resumes at the last completed chunk.
 

@@ -139,14 +139,42 @@ def _host_fingerprint() -> str:
     return hashlib.sha256(ident.encode()).hexdigest()[:12]
 
 
+#: Default persistent-cache root when ``JAX_COMPILATION_CACHE_DIR`` is
+#: unset: a fixed directory in the checkout (listed in ``.gitignore``), so
+#: every process started from the same checkout finds the same entries.
+DEFAULT_CACHE_ROOT = Path(__file__).resolve().parent.parent / ".jax_cache"
+
+
+def compilation_cache_dir() -> str:
+    """The persistent compile-cache directory this process uses: the
+    user's ``JAX_COMPILATION_CACHE_DIR`` as is, else
+    ``<checkout>/.jax_cache/<host fingerprint>``.
+
+    The default is segmented by a host-CPU fingerprint: XLA:CPU cache
+    entries embed AOT machine code compiled for the features the compiling
+    host detected, and loading them on a host with a different CPU is
+    undefined behaviour (observed as segfaults inside
+    ``backend_compile_and_load`` after a different VM generation shared a
+    cache directory). JAX's cache key does not cover the host
+    microarchitecture, so the directory name must.
+    """
+    import jax
+
+    user = jax.config.jax_compilation_cache_dir
+    if user:
+        return user
+    return str(DEFAULT_CACHE_ROOT / _host_fingerprint())
+
+
 def _enable_compilation_cache():
-    """Point JAX's persistent compilation cache at a user-level directory.
+    """Point JAX's persistent compilation cache at
+    :func:`compilation_cache_dir`.
 
     The wavefront tracer programs take O(minutes) to compile the first
     time (XLA while-loop + nested vmaps); caching makes every later
-    process start at dispatch speed. Opt out with
-    ``ERADIATE_TPU_COMPILATION_CACHE=0`` or by pre-setting
-    ``jax_compilation_cache_dir`` yourself.
+    process start at dispatch speed. A user-set ``JAX_COMPILATION_CACHE_DIR``
+    is used as is and no other directory is set. Opt out with
+    ``ERADIATE_TPU_COMPILATION_CACHE=0``.
     """
     flag = str(settings.get("COMPILATION_CACHE", "1")).lower()
     if flag in ("0", "false", "no", "off"):
@@ -154,24 +182,10 @@ def _enable_compilation_cache():
     try:
         import jax
 
-        if jax.config.jax_compilation_cache_dir:
-            return  # user already configured one
-        base = settings.get("CACHE_DIR") or os.path.join(
-            os.path.expanduser("~"), ".cache", "eradiate_tpu"
-        )
-        # Segment the cache by a host-CPU fingerprint: XLA:CPU cache
-        # entries embed AOT machine code compiled for the features the
-        # compiling host detected, and LOADING them on a host with a
-        # different CPU is undefined behavior ("could lead to execution
-        # errors such as SIGILL" per cpu_aot_loader) — observed here as
-        # reproducible full-test-suite segfaults inside
-        # backend_compile_and_load / get_executable_and_time after a
-        # round of entries written on a different VM generation shared
-        # the same cache directory. JAX's cache key does not cover the
-        # host microarchitecture, so the directory name must.
-        cache_dir = os.path.join(base, "jax_cache", _host_fingerprint())
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        if not jax.config.jax_compilation_cache_dir:
+            cache_dir = compilation_cache_dir()
+            os.makedirs(cache_dir, exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir", cache_dir)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
         # cache every sizable program, even with slight env differences
         jax.config.update(

@@ -5,16 +5,17 @@ Mirror of the reference mode registry (``src/eradiate/_mode.py:56-117``):
 {single, double precision}, plus aliases (``mono`` == ``mono_double`` in the
 reference, ``_mode.py:381-389``).
 
-TPU-native reinterpretation: there is no Mitsuba variant to swap. A mode
-selects
+Reinterpretation for a JAX engine: there is no Mitsuba variant to swap. A
+mode selects
 - the spectral discretization family (``mono`` vs ``ckd``) used for subtype
   dispatch (spectral grids / indices),
 - whether polarized transport (Stokes 4-vector path state) is compiled in,
-- the floating-point policy: on TPU, float64 is emulated and slow, so
-  "double" modes keep *path state* in float32 but use float64 **accumulators**
-  on host aggregation and enable x64 semantics for pre/post-processing
-  (numpy side). Device dtype remains configurable via
-  :attr:`Mode.device_dtype` for CPU-backed runs where f64 is native.
+- the floating-point policy: "double" modes keep *path state* in float32
+  unless JAX x64 is enabled, use float64 **accumulators** on host
+  aggregation and x64 semantics for pre/post-processing (numpy side).
+  Device dtype follows :attr:`Mode.device_dtype`. (This policy was set for
+  an accelerator with emulated f64; the GPU has native f64, and a fast
+  double-precision path is an open item in the ROADMAP.)
 """
 
 from __future__ import annotations
@@ -110,9 +111,9 @@ class Mode:
     def device_dtype(self):
         """Path-state dtype for device code.
 
-        TPU note: float64 is software-emulated on TPU; "double" modes keep
-        f32 path state with f64 (or compensated) accumulation unless JAX x64
-        is globally enabled on a CPU backend.
+        "Double" modes keep f32 path state with f64 (or compensated)
+        accumulation unless JAX x64 is globally enabled; then the path
+        state is f64.
         """
         import jax
 
@@ -193,8 +194,8 @@ def get_mode_or_none() -> Mode | None:
 def set_mode(mode_id: str) -> None:
     """Set the operational mode.
 
-    Mirror of ``eradiate.set_mode()`` (``src/eradiate/_mode.py:542``); the
-    TPU build swaps no compiled kernel variant — the mode only drives subtype
+    Mirror of ``eradiate.set_mode()`` (``src/eradiate/_mode.py:542``); this
+    build swaps no compiled kernel variant — the mode only drives subtype
     dispatch and precision policy.
     """
     global _CURRENT_MODE

@@ -1,7 +1,7 @@
 """Deterministic random-stream management.
 
 The reference uses ``np.random.SeedSequence`` spawning child seeds per render
-call (``src/eradiate/rng.py:15-62``). The TPU build replaces this with JAX's
+call (``src/eradiate/rng.py:15-62``). This build replaces this with JAX's
 counter-based threefry keys: a root key, deterministic ``fold_in`` derivation
 per (spectral chunk, sensor, device shard, pixel, sample), so every estimate
 is reproducible bit-for-bit regardless of device count or batching order.

@@ -1,7 +1,7 @@
 """Minimal unit system for configuration-boundary quantities.
 
 The reference framework uses :mod:`pint` everywhere (``src/eradiate/units.py``).
-For the TPU-native rebuild, units live *only* at the configuration boundary:
+For this rebuild, units live *only* at the configuration boundary:
 all device code operates on fixed kernel units (length: km, wavelength: nm,
 collision coefficient: 1/km, irradiance: W/m^2/nm, angle: rad internally,
 deg at the user surface). This module provides a small, dependency-free

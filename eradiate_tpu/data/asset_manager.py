@@ -2,7 +2,7 @@
 
 The reference's ``AssetManager`` (``src/eradiate/data/_asset_manager.py:61``)
 is manifest-driven with pooch downloads; this environment has no egress,
-so the TPU build manages a **user data directory** with archive/directory
+so this build manages a **user data directory** with archive/directory
 installs, sha256 verification, listing and removal — the same lifecycle
 (`install` / `list` / `remove`) minus the network fetch. Reference-format
 NetCDF payloads (absorption DB directories, SRF/solar/aerosol files)

@@ -3,7 +3,7 @@
 Mirrors of ``CanopyExperiment`` (``src/eradiate/experiments/_canopy.py:21``)
 and ``CanopyAtmosphereExperiment`` (``_canopy_atmosphere.py:47``): an
 explicit disk-leaf canopy over a lambertian-like surface, without / with a
-1D atmosphere. The TPU engine resolves leaf hits with dense tiled sweeps
+1D atmosphere. The engine resolves leaf hits with dense chunked sweeps
 (:mod:`eradiate_tpu.ops.tracer_canopy`).
 """
 
@@ -83,8 +83,8 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
         # Instanced fast path (VERDICT r1, Missing #4: instances stay
         # instances): a single leaf-cloud element replicated at >= 2
         # positions keeps ONE Morton-ordered canonical cloud + offset list
-        # — HBM leaf storage shrinks by the instance count; the sweeps run
-        # the virtual-block kernels (ops/canopy.InstancedLeafArrays).
+        # — device leaf storage shrinks by the instance count; the sweeps
+        # scan the instances (ops/canopy.InstancedLeafArrays).
         els = canopy.instanced_canopy_elements
         if (
             len(els) == 1
@@ -141,9 +141,9 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
                 return cloud, leaves, tris, tri_mesh
 
         flat, mesh = canopy.flatten_full()
-        # Morton-order the leaves so the Pallas sweep kernels' per-block
-        # bounding spheres are tight (ops/canopy.morton_order) — pure
-        # reordering, results are order-invariant
+        # Morton-order the leaves (ops/canopy.morton_order): spatially
+        # adjacent leaves share a chunk — pure reordering, results are
+        # order-invariant
         order = morton_order(flat.positions)
         leaves = LeafCloudArrays(
             centers=jnp.asarray(flat.positions[order], dtype=dtype),

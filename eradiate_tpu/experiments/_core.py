@@ -2,7 +2,7 @@
 
 Mirror of ``src/eradiate/experiments/_core.py``: an Experiment owns scene
 elements + measures, compiles the scene, runs the engine and post-processes
-results. TPU-first restructuring of the hot path (SURVEY §3.4): instead of
+results. Restructured hot path (SURVEY §3.4): instead of
 the reference's serial {spectral ctx x sensor} Python loop around
 ``mi.render``, each measure's full spectral grid is compiled into a single
 device-resident spectral batch and rendered in one (sharded) engine call.
@@ -126,7 +126,7 @@ class EarthObservationExperiment(Experiment):
     )
     #: maximum spectral indices compiled into one device batch; larger
     #: grids (e.g. line-by-line mono DBs with ~3e5 wavelengths) stream in
-    #: chunks — the TPU-native replacement for the reference's serial
+    #: chunks — the replacement for the reference's serial
     #: spectral loop at bounded memory (SURVEY §7.3 "CKD spectral loop
     #: restructuring")
     spectral_chunk_size: int = attrs.field(default=4096, kw_only=True)

@@ -1,7 +1,7 @@
 // Native runtime support for eradiate_tpu.
 //
 // The reference's number-crunching core is C++ (Mitsuba, SURVEY §2.1); in
-// the TPU build the compute path is JAX/XLA, and the native layer covers
+// this build the compute path is JAX/XLA, and the native layer covers
 // the *runtime around it*: binary dataset IO (Mitsuba-compatible .vol
 // grids, mirror of `src/eradiate/kernel/gridvolume.py:15-60`) and
 // threaded host-side table preparation (absorption-coefficient

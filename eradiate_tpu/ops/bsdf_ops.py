@@ -1,6 +1,6 @@
 """Surface BSDF evaluation and sampling (pure JAX, path-batched).
 
-TPU-native equivalents of the reference's C++ BSDF plugins (SURVEY §2.1:
+JAX equivalents of the reference's C++ BSDF plugins (SURVEY §2.1:
 ``diffuse``/lambertian, ``rpv``, ``hapke``, ``rtls``, ``bilambertian``,
 ocean family, ...). Formulas are re-derived from the published models, not
 ported from Mitsuba.

@@ -1,6 +1,6 @@
 """Polarized surface reflection: Mueller-matrix BRDFs.
 
-TPU-native equivalents of the reference's polarized surface plugins
+JAX equivalents of the reference's polarized surface plugins
 (``maignan``, ``scenes/bsdfs/_maignan.py:105``; ``ocean_mishchenko``,
 ``scenes/bsdfs/_ocean_mishchenko.py``). Scalar kinds reduce to ideal
 depolarizers, so :func:`surface_mueller` is the single dispatch point used
@@ -13,7 +13,7 @@ frames of :func:`eradiate_tpu.ops.mueller.rayleigh_mueller`; Q > 0 means
 polarization along the in-plane (p) basis.
 
 Complex Fresnel coefficients are computed with explicit real/imaginary
-arithmetic (no complex dtypes — TPU-friendly and f32/f64 agnostic).
+arithmetic (no complex dtypes — f32/f64 agnostic).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Digital elevation model (heightfield) intersection.
 
-TPU-native replacement for the reference's triangulated DEM meshes
+JAX replacement for the reference's triangulated DEM meshes
 (``scenes/surface/_dem.py:475``, ``mesh_from_dem``): instead of a triangle
 BVH, the terrain is a bilinear heightfield h(x, y) on a regular grid,
 intersected by bounded ray marching with bisection refinement — fixed

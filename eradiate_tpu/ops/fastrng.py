@@ -1,7 +1,7 @@
-"""TPU-native counter-based RNG for the per-bounce uniform draws.
+"""Counter-based RNG for the per-bounce uniform draws.
 
-Motivation (round 5): xprof on the c1 driver shape shows ~30% of device
-time inside threefry2x32 — JAX's `fold_in` + `uniform((n,))` per bounce
+Motivation (round 5, measured on the previous accelerator): a profile of
+the c1 driver shape showed ~30% of device time inside threefry2x32 — JAX's `fold_in` + `uniform((n,))` per bounce
 runs the full 20-round cipher over ~6 counter blocks per lane per
 iteration.  Threefry's cryptographic margin buys nothing here: path
 tracing needs statistical uniformity and stream independence, not
@@ -14,9 +14,10 @@ The fast path is the **pcg4d hash** (Jarzynski & Olano, JCGT 2020,
 "Hash Functions for GPU Rendering" — public domain construction, widely
 used in production wavefront path tracers): a 4-word LCG step followed
 by two rounds of cross-word multiply-add feedback and a xorshift.  Cost
-per 4 outputs is ~16 32-bit multiply/adds and 4 xorshifts — all
-TPU-VPU-native ops (32x32->low-32 multiplies; no 64-bit arithmetic, no
-rotates), roughly 10x cheaper than the threefry draw it replaces.
+per 4 outputs is ~16 32-bit multiply/adds and 4 xorshifts (32x32->low-32
+multiplies; no 64-bit arithmetic, no rotates), far cheaper than the
+threefry draw it replaces. Whether it still pays on the GPU is an open
+item (ROADMAP, Speed).
 
 Keying discipline is unchanged: the hash input is the lane's
 *threefry-derived* key data (already keyed by pixel, global sample id

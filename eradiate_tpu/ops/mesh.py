@@ -1,12 +1,12 @@
 """Triangle-mesh geometry kernels: ray / triangle intersection.
 
-TPU-native replacement for the reference's triangle-mesh + BVH tracing
-(SURVEY §2.1: Embree-optional surface intersection; mesh shapes
+JAX replacement for the reference's triangle-mesh + BVH tracing (SURVEY
+§2.1: Embree-optional surface intersection; mesh shapes
 ``scenes/shapes/_filemesh.py`` / ``_buffermesh.py``, mesh trees
 ``scenes/biosphere/_tree.py``). Same design as the leaf-disk sweep
 (:mod:`eradiate_tpu.ops.canopy`): no BVH — the [paths x triangles] grid is
-evaluated in VMEM-sized chunks with branchless Moller-Trumbore, which XLA
-maps onto the VPU as dense regular compute.
+evaluated in fixed-size chunks with branchless Moller-Trumbore, as dense
+regular elementwise compute.
 
 Storage is pre-differenced for the hot loop: v0 [N, 3] plus edge vectors
 e1 = v1 - v0, e2 = v2 - v0. Lengths in km (kernel units).
@@ -28,7 +28,7 @@ __all__ = [
     "mesh_from_vertices",
     "ray_tris_nearest",
     "ray_tris_occluded",
-    "tri_accel",
+    "tri_bounds",
     "tri_nearest",
     "tri_occluded",
     "cylinder_mesh",
@@ -46,7 +46,7 @@ class TriangleMeshArrays:
 @_pytree_dataclass
 class InstancedTriArrays:
     """Instanced triangle geometry: one canonical soup + per-instance
-    translations (sweeps run virtual-block kernels; see
+    translations (the sweeps scan instances; see
     ops/canopy.InstancedLeafArrays for the design)."""
 
     canonical: TriangleMeshArrays
@@ -69,15 +69,16 @@ _EPS_T = 1e-7
 def _chunk_hits(p, d, v0, e1, e2, t_max):
     """Moller-Trumbore distances of rays [B, 3] against a triangle chunk
     [Nc]. Returns t [B, Nc] with +inf where missed."""
-    # pvec = d x e2 ; det = e1 . pvec
+    # pvec = d x e2 ; det = e1 . pvec. The 3-vector dots are elementwise
+    # multiply-and-sum: exact f32 on every backend, no matmul precision
     pvec = jnp.cross(d[:, None, :], e2[None, :, :])  # [B, Nc, 3]
-    det = jnp.einsum("nj,bnj->bn", e1, pvec)
+    det = jnp.sum(e1[None, :, :] * pvec, axis=-1)
     inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
     tvec = p[:, None, :] - v0[None, :, :]
-    u = jnp.einsum("bnj,bnj->bn", tvec, pvec) * inv_det
+    u = jnp.sum(tvec * pvec, axis=-1) * inv_det
     qvec = jnp.cross(tvec, e1[None, :, :])
-    v = jnp.einsum("bj,bnj->bn", d, qvec) * inv_det
-    t = jnp.einsum("nj,bnj->bn", e2, qvec) * inv_det
+    v = jnp.sum(d[:, None, :] * qvec, axis=-1) * inv_det
+    t = jnp.sum(e2[None, :, :] * qvec, axis=-1) * inv_det
     ok = (
         (jnp.abs(det) > 1e-12)
         & (u >= 0.0)
@@ -130,8 +131,7 @@ def ray_tris_nearest(p, d, t_max, tris: TriangleMeshArrays, chunk: int = 512):
     def reduce_fn(carry, t, xs):
         best_t, best_n = carry
         v, a, b = xs
-        # gather-free winner selection (see ops/canopy.ray_leaves_nearest):
-        # per-lane gathers lower to serial dynamic slices on TPU
+        # gather-free winner selection (see ops/canopy.ray_leaves_nearest)
         n_tri = jnp.cross(a, b)  # [Nc, 3]
         n_tri = n_tri / jnp.maximum(
             jnp.linalg.norm(n_tri, axis=-1, keepdims=True), 1e-12
@@ -168,24 +168,9 @@ def ray_tris_occluded(p, d, t_max, tris: TriangleMeshArrays, chunk: int = 512):
     )
 
 
-def _pallas_eligible(p, tris: TriangleMeshArrays) -> bool:
-    """Mosaic sweep kernels are f32/TPU-only (see ops/canopy);
-    ``ERADIATE_NO_PALLAS=1`` forces the XLA path."""
-    import os
-
-    if os.environ.get("ERADIATE_NO_PALLAS"):
-        return False
-    return (
-        jax.default_backend() == "tpu"
-        and p.dtype == jnp.float32
-        and tris.v0.dtype == jnp.float32
-    )
-
-
-def tri_accel(p, tris):
-    """Acceleration data for the triangle sweeps: ``(block_spheres,
-    aabb_lo, aabb_hi)`` (canonical-soup spheres for instanced sets).
-    Compute ONCE per render (outside the path loop) and pass to
+def tri_bounds(tris):
+    """(lo, hi) AABB of the triangle set (flat or instanced). Compute it
+    ONCE per render (outside the path loop) and pass it to
     :func:`tri_nearest`/:func:`tri_occluded`."""
     base = tris.canonical if isinstance(tris, InstancedTriArrays) else tris
     verts = jnp.concatenate(
@@ -196,14 +181,10 @@ def tri_accel(p, tris):
     if isinstance(tris, InstancedTriArrays):
         lo = lo + jnp.min(tris.offsets, axis=0)
         hi = hi + jnp.max(tris.offsets, axis=0)
-    if not _pallas_eligible(p, base):
-        return None, lo, hi
-    from .pallas.tri_intersect import tri_block_spheres
-
-    return tri_block_spheres(base.v0, base.e1, base.e2), lo, hi
+    return lo, hi
 
 
-def _instanced_tris_nearest_xla(p, d, t_max, inst):
+def _instanced_tris_nearest(p, d, t_max, inst):
     c = inst.canonical
     B = p.shape[0]
 
@@ -224,60 +205,31 @@ def _instanced_tris_nearest_xla(p, d, t_max, inst):
     return jnp.where(hit, best_t, t_max), best_n, hit
 
 
-def tri_nearest(p, d, t_max, tris, accel=None):
+def tri_nearest(p, d, t_max, tris, bounds=None):
     """Nearest triangle hit with AABB-advanced origins (precision at
     TOA-distant ray starts + whole-lane culling; see
-    ops/canopy._advance_to_aabb) and Pallas tiled sweeps on TPU/f32
-    (virtual-block grid for instanced sets)."""
+    ops/canopy._advance_to_aabb), then the dense sweep (instance scan for
+    instanced sets). ``bounds``: :func:`tri_bounds` of ``tris``."""
     from .canopy import _advance_to_aabb
 
-    spheres, lo, hi = accel if accel is not None else tri_accel(p, tris)
+    lo, hi = bounds if bounds is not None else tri_bounds(tris)
     p_adv, t0, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     if isinstance(tris, InstancedTriArrays):
-        c = tris.canonical
-        if _pallas_eligible(p, c):
-            from .pallas.tri_intersect import (
-                ray_tris_nearest_instanced_pallas,
-            )
-
-            t_loc, n, hit = ray_tris_nearest_instanced_pallas(
-                p_adv, d, t_cap, c.v0, c.e1, c.e2, tris.offsets,
-                spheres=spheres,
-            )
-        else:
-            t_loc, n, hit = _instanced_tris_nearest_xla(
-                p_adv, d, t_cap, tris
-            )
-        return jnp.where(hit, t0 + t_loc, t_max), n, hit
-    if _pallas_eligible(p, tris):
-        from .pallas.tri_intersect import ray_tris_nearest_pallas
-
-        t_loc, n, hit = ray_tris_nearest_pallas(
-            p_adv, d, t_cap, tris.v0, tris.e1, tris.e2, spheres=spheres
-        )
+        t_loc, n, hit = _instanced_tris_nearest(p_adv, d, t_cap, tris)
     else:
         t_loc, n, hit = ray_tris_nearest(p_adv, d, t_cap, tris)
     return jnp.where(hit, t0 + t_loc, t_max), n, hit
 
 
-def tri_occluded(p, d, t_max, tris, accel=None):
-    """Shadow-ray any-hit with AABB advance; Pallas on TPU/f32
-    (virtual-block grid for instanced sets)."""
+def tri_occluded(p, d, t_max, tris, bounds=None):
+    """Shadow-ray any-hit with AABB advance (instance scan for instanced
+    sets); ``bounds`` as in :func:`tri_nearest`."""
     from .canopy import _advance_to_aabb
 
-    spheres, lo, hi = accel if accel is not None else tri_accel(p, tris)
+    lo, hi = bounds if bounds is not None else tri_bounds(tris)
     p_adv, t0, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     if isinstance(tris, InstancedTriArrays):
         c = tris.canonical
-        if _pallas_eligible(p, c):
-            from .pallas.tri_intersect import (
-                ray_tris_occluded_instanced_pallas,
-            )
-
-            return ray_tris_occluded_instanced_pallas(
-                p_adv, d, t_cap, c.v0, c.e1, c.e2, tris.offsets,
-                spheres=spheres,
-            )
 
         def body(carry, offset):
             return carry | ray_tris_occluded(
@@ -288,12 +240,6 @@ def tri_occluded(p, d, t_max, tris, accel=None):
             body, jnp.zeros(p.shape[0], dtype=bool), tris.offsets
         )
         return occ
-    if _pallas_eligible(p, tris):
-        from .pallas.tri_intersect import ray_tris_occluded_pallas
-
-        return ray_tris_occluded_pallas(
-            p_adv, d, t_cap, tris.v0, tris.e1, tris.e2, spheres=spheres
-        )
     return ray_tris_occluded(p_adv, d, t_cap, tris)
 
 

@@ -1,6 +1,6 @@
 """Mueller/Stokes calculus for polarized transport.
 
-TPU-native equivalent of the reference's polarized variants (SURVEY §2.1:
+JAX equivalent of the reference's polarized variants (SURVEY §2.1:
 ``*_polarized`` modes, Mueller 4x4 path weights, Stokes reference-frame
 rotation and the ``stokes`` integrator's meridian alignment,
 ``scenes/integrators/_core.py:67-92``).
@@ -18,6 +18,7 @@ the (0,0) element is the scalar phase function [1/sr].
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -131,4 +132,6 @@ def stokes_rotate_to_basis(S, d, b_from, b_to):
     """Re-express Stokes vector S from basis b_from to basis b_to."""
     phi = rotate_basis_angle(d, b_from, b_to)
     R = rotator(phi)
-    return jnp.einsum("...ij,...j->...i", R, S)
+    return jnp.einsum(
+        "...ij,...j->...i", R, S, precision=jax.lax.Precision.HIGHEST
+    )

@@ -1,6 +1,6 @@
 """Phase function evaluation and sampling (pure JAX, path-batched).
 
-TPU-native equivalents of the reference's C++ phase plugins (SURVEY §2.1:
+JAX equivalents of the reference's C++ phase plugins (SURVEY §2.1:
 ``rayleigh``, ``rayleigh_polarized``, ``hg``, ``isotropic``, ``tabphase``
 family, ``blendphase``). All functions operate per path on a single
 spectral row (the tracer vmaps over the spectral axis) and are branchless:
@@ -54,10 +54,9 @@ def ortho_frame(d):
 def direction_from_cos(d_in, cos_theta, phi):
     """Scattered direction at angle (theta, phi) around incident d_in.
 
-    TPU note: replacing ``sin(phi)`` with ``sign * sqrt(1 - cos^2)`` was
-    measured (round 4) to change c1/c2 by < run variance — the cos+sin
-    pair fuses as cheaply as cos+sqrt+select on the VPU — so the plain
-    transcendental form stays. The TRANSPORT loop instead calls
+    Replacing ``sin(phi)`` with ``sign * sqrt(1 - cos^2)`` changed c1/c2
+    by less than the run-to-run spread when measured on the previous
+    accelerator, so the plain transcendental form stays. The TRANSPORT loop instead calls
     :func:`direction_from_cos_u` (round 5): libm cos+sin of the azimuth
     measured at 40% of c1 device time, and at ``phi = 2*pi*u`` the
     quadrant-reduced polynomial pair (:func:`eradiate_tpu.ops.fastmath.
@@ -111,7 +110,7 @@ def rayleigh_sample_cos(depol, u):
     """Exact inverse-CDF sample of cos_theta from a + b cos^2.
 
     Mixture decomposition: uniform (mass 2a) + cubic |u|^(1/3) (mass 2b/3);
-    both components sampled in closed form — branchless and TPU-friendly.
+    both components sampled in closed form — branchless.
     """
     a, b = _rayleigh_ab(depol)
     w_uniform = (2.0 * a) / (2.0 * a + 2.0 * b / 3.0)
@@ -179,8 +178,8 @@ def theta_grid_params(mu):
 
 
 def tab_eval(params, cos_theta):
-    # MXU-ridden fetch: the per-bounce masked reductions over the [M] mu
-    # grid were the dominant share of the c2 transport fusions. On a
+    # per-bounce table fetch: masked reductions over the [M] mu grid were
+    # the dominant share of the c2 transport fusions (previous accelerator). On a
     # theta-uniform grid (params["tg0"]/["itg"] present, the Mie
     # datasets) the cell index is ARITHMETIC — one arccos + a poly cos
     # replace the [B, M] compare-sum and the masked x0/dx reductions;

@@ -2,13 +2,13 @@
 ``stratified``, ``multijitter``, ``orthogonal``, ``ldsampler``;
 ``scenes/measure/_core.py:142-154``).
 
-TPU-native design: the reference's samplers are stateful per-pixel streams
+Design: the reference's samplers are stateful per-pixel streams
 (PCG32) feeding every MC decision. Here all secondary decisions come from
 counter-based threefry keys (deterministic under resharding); the sampler
 kind controls the **primary sample dimension** — the first collision
 distance, which dominates estimator variance for distant radiometer banks.
 Stratifying path-dependent dimensions beyond the first has vanishing effect
-(paths diverge after one event), so the TPU build spends its structure where
+(paths diverge after one event), so this build spends its structure where
 it pays: the first flight.
 
 All generators return ``u`` in [0, 1) of shape ``[spp]`` (per pixel), to be

@@ -1,6 +1,6 @@
 """Compiled scene state: the pytree the device engine consumes.
 
-TPU-first design (SURVEY §7.1 "scene IR"): the declarative scene-element
+Design (SURVEY §7.1 "scene IR"): the declarative scene-element
 tree (``eradiate_tpu.scenes``) compiles to a flat **pytree of arrays** plus a
 hashable **static config** — not an object tree like the reference's Mitsuba
 scene (``kernel/_render.py:186-209``). Re-rendering with new spectral data
@@ -102,7 +102,7 @@ class SensorArrays:
     is textured or a canopy is present.
     ``target_extent``: optional [2] (or [N, 2]) full x,y extents of a jitter
     rectangle centered on ``target`` — ray origins are sampled uniformly
-    over it per path, the TPU equivalent of the reference's rectangle
+    over it per path, the equivalent of the reference's rectangle
     target sampling (``scenes/measure/_distant.py:139-228``).
     """
 
@@ -155,7 +155,7 @@ class SceneConfig:
     #: emitter family: "directional" (sun/astroobject/constant) or "spot"
     #: (point source with conical beam; canopy tracer only)
     illumination_kind: str = "directional"
-    #: per-bounce uniform expansion: "pcg4d" (TPU-native hash, ~10x
-    #: cheaper, default) | "threefry" (legacy bit stream). Key
+    #: per-bounce uniform expansion: "pcg4d" (integer hash,
+    #: default) | "threefry" (legacy bit stream). Key
     #: *derivation* is threefry either way — see ops/fastrng.py.
     rng: str = "pcg4d"

@@ -1,11 +1,11 @@
 """Wavefront path tracer — canopy scenes (leaf clouds + ground +
 optional 1D atmosphere), plane-parallel geometry.
 
-TPU-native equivalent of the reference's ``path`` integrator over
+JAX equivalent of the reference's ``path`` integrator over
 disk-based discrete canopies and of the coupled canopy + atmosphere
 scenes (``experiments/_canopy.py:21``, ``_canopy_atmosphere.py:47``;
 BASELINE config 5). One loop iteration resolves the nearest of
-{medium collision (closed-form free flight), leaf-disk hit (dense tiled
+{medium collision (closed-form free flight), leaf-disk hit (dense chunked
 sweep, :mod:`eradiate_tpu.ops.canopy`), ground hit, escape}; next-event
 estimation casts leaf-occlusion shadow rays and multiplies the closed-form
 atmospheric sun transmittance.
@@ -25,12 +25,10 @@ from .bsdf_ops import (
     bsdf_sample_from_uniforms,
 )
 from .canopy import (
-    InstancedLeafArrays,
     LeafCloudArrays,
     leaf_bounds,
     leaf_nearest,
     leaf_occluded,
-    leaf_spheres,
 )
 from .medium import clamp_mu, take_1d, tau_at_z, z_at_tau
 from .phase_ops import ortho_frame, phase_eval, phase_sample_from_uniforms
@@ -76,40 +74,29 @@ def _canopy_helpers(
     def tau_z(z):
         return tau_at_z(z, z_levels, tau_levels)
 
-    # sweep acceleration data (block spheres + AABB): computed ONCE per
-    # render here (trace time, outside the path while_loop) and passed to
-    # every sweep call
-    _base = (
-        leaves.canonical if isinstance(leaves, InstancedLeafArrays)
-        else leaves
-    )
-    spheres = leaf_spheres(_base.centers, leaves)
+    # sweep bounds (AABBs): computed ONCE per render here (trace time,
+    # outside the path while_loop) and passed to every sweep call
+    leaf_box = leaf_bounds(leaves)
     if tris is not None:
-        from .mesh import tri_accel
+        from .mesh import tri_bounds
 
-        from .mesh import InstancedTriArrays
-
-        _tri_base = (
-            tris.canonical if isinstance(tris, InstancedTriArrays)
-            else tris
-        )
-        tris_accel = tri_accel(_tri_base.v0, tris)
+        tri_box = tri_bounds(tris)
     else:
-        tris_accel = None
+        tri_box = None
 
     def sun_T(pos):
         z = pos[:, 2]
         T_atm = jnp.exp(-(tau_top - tau_z(z)) / mu_sun)
         occluded = leaf_occluded(
             pos, jnp.broadcast_to(w_sun, pos.shape), jnp.full(pos.shape[0], 1e6),
-            leaves, spheres,
+            leaves, leaf_box,
         )
         if tris is not None:
             from .mesh import tri_occluded
 
             occluded = occluded | tri_occluded(
                 pos, jnp.broadcast_to(w_sun, pos.shape),
-                jnp.full(pos.shape[0], 1e6), tris, tris_accel,
+                jnp.full(pos.shape[0], 1e6), tris, tri_box,
             )
         return T_atm * jnp.where(occluded, 0.0, 1.0)
 
@@ -136,18 +123,18 @@ def _canopy_helpers(
         w_nee = v / jnp.maximum(r[:, None], 1e-9)
         # top-hat beam: inside the cone around the spot axis
         in_beam = (
-            jnp.einsum("ij,j->i", -w_nee, illum_row.direction)
+            -jnp.sum(w_nee * illum_row.direction, axis=-1)
             >= illum_row.cos_cutoff
         )
         # exact 1D-medium transmittance along the finite segment
         z_spot = jnp.clip(illum_row.position[2], z_bottom, z_top)
         dtau = jnp.abs(tau_z(z_spot) - tau_z(pos[:, 2]))
         T_atm = jnp.exp(-dtau / jnp.maximum(jnp.abs(w_nee[:, 2]), 1e-6))
-        occ = leaf_occluded(pos, w_nee, r, leaves, spheres)
+        occ = leaf_occluded(pos, w_nee, r, leaves, leaf_box)
         if tris is not None:
             from .mesh import tri_occluded
 
-            occ = occ | tri_occluded(pos, w_nee, r, tris, tris_accel)
+            occ = occ | tri_occluded(pos, w_nee, r, tris, tri_box)
         # intensity [W/sr/nm] / r^2 [km^2] -> irradiance [W/m^2/nm]
         E = illum_row.irradiance * 1e-6 / jnp.maximum(r * r, 1e-12)
         E = jnp.where(in_beam & ~occ, E * T_atm, 0.0)
@@ -158,8 +145,8 @@ def _canopy_helpers(
         "sun_T": sun_T,
         "nee_dir": nee_dir,
         "nee_at": nee_at,
-        "spheres": spheres,
-        "tris_accel": tris_accel,
+        "leaf_box": leaf_box,
+        "tri_box": tri_box,
     }
 
 
@@ -187,8 +174,8 @@ def trace_paths_canopy(
     bounce = _make_bounce_canopy(
         config, medium_row, surface_row, leaf_row, leaves, illum_row,
         tris, tri_row, helpers["tau_z"], helpers["nee_dir"],
-        helpers["nee_at"], eps, spheres=helpers["spheres"],
-        tris_accel=helpers["tris_accel"],
+        helpers["nee_at"], eps, leaf_box=helpers["leaf_box"],
+        tri_box=helpers["tri_box"],
     )
 
     def body(carry):
@@ -218,8 +205,8 @@ def trace_paths_canopy(
 
 def _make_bounce_canopy(
     config, medium_row, surface_row, leaf_row, leaves, illum_row,
-    tris, tri_row, tau_z, nee_dir, nee_at, eps, spheres=None,
-    tris_accel=None,
+    tris, tri_row, tau_z, nee_dir, nee_at, eps, leaf_box=None,
+    tri_box=None,
 ):
     """Per-bounce transition closure shared by the one-shot and
     regenerative canopy loops (see ops/tracer._make_bounce)."""
@@ -251,11 +238,11 @@ def _make_bounce_canopy(
         t_med = jnp.where(collide_med, (z_med - z) / mu, (z_edge - z) / mu)
 
         # nearest scatterer (leaf disk or mesh triangle) within the segment
-        t_leaf, n_leaf, hit_leaf = leaf_nearest(pos, d, t_med, leaves, spheres)
+        t_leaf, n_leaf, hit_leaf = leaf_nearest(pos, d, t_med, leaves, leaf_box)
         if tris is not None:
             from .mesh import tri_nearest
 
-            t_tri, n_tri, hit_tri = tri_nearest(pos, d, t_med, tris, tris_accel)
+            t_tri, n_tri, hit_tri = tri_nearest(pos, d, t_med, tris, tri_box)
             tri_first = hit_tri & (~hit_leaf | (t_tri < t_leaf))
             hit_scat = hit_leaf | hit_tri
             t_leaf = jnp.where(tri_first, t_tri, t_leaf)
@@ -283,11 +270,11 @@ def _make_bounce_canopy(
         # position-independent for the directional sun and varies
         # negligibly over the offset for spot sources.
         # leaf frame (needed for the off-surface shadow origin)
-        to_front = -jnp.sign(jnp.einsum("ij,ij->i", d, n_leaf))
+        to_front = -jnp.sign(jnp.sum(d * n_leaf, axis=-1))
         n_shade = n_leaf * to_front[:, None]
         w_nee_leaf_dir = nee_dir(pos_leaf)
         wi_leaf_sign = jnp.sign(
-            jnp.einsum("ij,ij->i", n_shade, w_nee_leaf_dir)
+            jnp.sum(n_shade * w_nee_leaf_dir, axis=-1)
         )[:, None]
         # distance-scaled lift-off: pos + t d at t ~ 100 km (TOA camera
         # starts) rounds by ~ulp(t) ~ 1e-5 km in f32 — the hit can land
@@ -309,7 +296,7 @@ def _make_bounce_canopy(
         albedo_col = take_1d(medium_row.albedo, layer)
         w_nee_med, E_med = w_nee, E_nee
         # incoming light propagation (-w_nee) scattered into -d
-        cos_nee = jnp.einsum("ij,ij->i", w_nee_med, d)
+        cos_nee = jnp.sum(w_nee_med * d, axis=-1)
         p_nee = jax.vmap(
             lambda l, c: phase_eval(
                 config.phase_kinds, medium_row.phase_params,
@@ -347,7 +334,7 @@ def _make_bounce_canopy(
                 "transmittance": jnp.broadcast_to(leaf_row["transmittance"], (B,)),
             }
         f_leaf = bilambertian_eval(lp, wi_sun_leaf, wo_leaf)
-        cos_sun_leaf = jnp.abs(jnp.einsum("ij,ij->i", n_shade, w_nee))
+        cos_sun_leaf = jnp.abs(jnp.sum(n_shade * w_nee, axis=-1))
         # E_nee was evaluated at pos_leaf_off (the shadow origin slightly
         # off the leaf on the emitter's side) for event_leaf lanes
         L_leaf = beta * f_leaf * cos_sun_leaf * E_nee
@@ -408,10 +395,11 @@ def _make_bounce_canopy(
 
 
 #: Bounces between spatial lane sorts in the canopy regen loop (0 = off).
-#: Sorting lanes by the Morton code of their current position makes ray
-#: blocks spatially coherent, which is what lets the Pallas sweep kernels'
-#: per-block bounding-sphere culling actually skip tiles (incoherent lanes
-#: defeat it: one stray ray per 1024-lane block touches every block).
+#: Sorting lanes by the Morton code of their current position keeps ray
+#: blocks spatially coherent, which a sweep that culls leaf chunks per ray
+#: block needs (incoherent lanes defeat it: one stray ray per block
+#: touches every chunk). The dense sweep culls nothing, so the sort's cost
+#: against its benefit is still to be measured on the GPU.
 #: Override with ERADIATE_CANOPY_SORT=<n>.
 CANOPY_SORT_EVERY = 1
 
@@ -460,7 +448,7 @@ def trace_paths_canopy_regen(
 
     When ``CANOPY_SORT_EVERY`` > 0 the loop periodically permutes ALL lane
     state by the Morton code of the current position (done lanes parked at
-    TOA pointing up — their blocks then cull every sweep tile). Keys travel
+    TOA pointing up, outside the leaf AABB). Keys travel
     with their lane, so per-sample paths are identical to the unsorted
     loop; only the f32 summation grouping changes. The final sums are
     scattered back to original lane order.
@@ -472,19 +460,15 @@ def trace_paths_canopy_regen(
     bounce = _make_bounce_canopy(
         config, medium_row, surface_row, leaf_row, leaves, illum_row,
         tris, tri_row, helpers["tau_z"], helpers["nee_dir"],
-        helpers["nee_at"], 1e-6, spheres=helpers["spheres"],
-        tris_accel=helpers["tris_accel"],
+        helpers["nee_at"], 1e-6, leaf_box=helpers["leaf_box"],
+        tri_box=helpers["tri_box"],
     )
     B = init_pos.shape[0]
     dtype = init_pos.dtype
     z_top = medium_row.z_levels[-1]
     sort_every = _sort_interval()
     # scene bounds for the sort key: the leaf AABB plus the column above it
-    _, box_lo, box_hi = (
-        helpers["spheres"]
-        if isinstance(helpers["spheres"], tuple) and len(helpers["spheres"]) == 3
-        else (None,) + leaf_bounds(leaves)
-    )
+    box_lo, box_hi = helpers["leaf_box"]
 
     def sample_key(lane_first, s_local):
         return derive_keys(
@@ -527,8 +511,8 @@ def trace_paths_canopy_regen(
         L_cur = jnp.where(path_end, 0.0, L_cur)
         depth = jnp.where(regen, 0, depth)
 
-        # park done lanes at TOA pointing up: valid geometry, zero AABB
-        # overlap, so sorted-together done blocks cull every sweep tile
+        # park done lanes at TOA pointing up: valid geometry with zero AABB
+        # overlap, so their sweeps start with a zero flight cap
         park = jnp.stack(
             [jnp.zeros(B, dtype), jnp.zeros(B, dtype),
              jnp.full(B, z_top, dtype)], axis=-1

@@ -53,6 +53,10 @@ from .tracer_polarized import _phase_mueller, _scatter_frames
 
 __all__ = ["render_canopy_polarized"]
 
+#: f32 Stokes/Mueller contractions run at full f32: a backend's default
+#: matmul precision may round operands (TF32 on recent NVIDIA GPUs).
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _make_bounce_canopy_polarized(
     config, medium_row, surface_row, leaf_row, leaves, illum_row,
@@ -66,8 +70,8 @@ def _make_bounce_canopy_polarized(
     tau_z = helpers["tau_z"]
     nee_dir = helpers["nee_dir"]
     nee_at = helpers["nee_at"]
-    spheres = helpers["spheres"]
-    tris_accel = helpers["tris_accel"]
+    leaf_box = helpers["leaf_box"]
+    tri_box = helpers["tri_box"]
 
     def bounce(depth_b, pos, d, P, b, beta, keys):
         B = pos.shape[0]
@@ -92,11 +96,11 @@ def _make_bounce_canopy_polarized(
         z_edge = jnp.where(mu > 0.0, z_top, z_bottom)
         t_med = jnp.where(collide_med, (z_med - z) / mu, (z_edge - z) / mu)
 
-        t_leaf, n_leaf, hit_leaf = leaf_nearest(pos, d, t_med, leaves, spheres)
+        t_leaf, n_leaf, hit_leaf = leaf_nearest(pos, d, t_med, leaves, leaf_box)
         if tris is not None:
             from .mesh import tri_nearest
 
-            t_tri, n_tri, hit_tri = tri_nearest(pos, d, t_med, tris, tris_accel)
+            t_tri, n_tri, hit_tri = tri_nearest(pos, d, t_med, tris, tri_box)
             tri_first = hit_tri & (~hit_leaf | (t_tri < t_leaf))
             hit_scat = hit_leaf | hit_tri
             t_leaf = jnp.where(tri_first, t_tri, t_leaf)
@@ -118,11 +122,11 @@ def _make_bounce_canopy_polarized(
         pos_ground = pos_ground.at[:, 2].set(z_bottom)
 
         # ---- shared NEE (one occlusion sweep per bounce) ----------------
-        to_front = -jnp.sign(jnp.einsum("ij,ij->i", d, n_leaf))
+        to_front = -jnp.sign(jnp.sum(d * n_leaf, axis=-1))
         n_shade = n_leaf * to_front[:, None]
         w_nee_leaf_dir = nee_dir(pos_leaf)
         wi_leaf_sign = jnp.sign(
-            jnp.einsum("ij,ij->i", n_shade, w_nee_leaf_dir)
+            jnp.sum(n_shade * w_nee_leaf_dir, axis=-1)
         )[:, None]
         # distance-scaled lift-off (see ops/tracer_canopy: f32 rounding
         # of pos + t d at TOA-scale t can land the hit below its own
@@ -141,7 +145,7 @@ def _make_bounce_canopy_polarized(
 
         # ---- medium collision (polarized phase) -------------------------
         albedo_col = take_1d(medium_row.albedo, layer)
-        cos_nee = jnp.einsum("ij,ij->i", w_nee, d)
+        cos_nee = jnp.sum(w_nee * d, axis=-1)
         _, h_out_nee = _scatter_frames(-w_nee, l_out)
         M_nee = jax.vmap(
             lambda l, c: _phase_mueller(
@@ -154,7 +158,9 @@ def _make_bounce_canopy_polarized(
         )(layer, cos_nee)
         R_out = rotator(rotate_basis_angle(l_out, h_out_nee, b))
         S_in_med = jnp.zeros((B, 4)).at[:, 0].set(E_nee * albedo_col * beta)
-        S_med = jnp.einsum("bij,bjk,bkl,bl->bi", P, R_out, M_nee, S_in_med)
+        S_med = jnp.einsum(
+            "bij,bjk,bkl,bl->bi", P, R_out, M_nee, S_in_med, precision=_HI
+        )
 
         d_med = jax.vmap(
             lambda l, dd, us, uc, up: phase_sample_from_uniforms(
@@ -168,7 +174,7 @@ def _make_bounce_canopy_polarized(
                 up,
             )
         )(layer, d, u_sel, u_cos, u_phi)
-        cos_scat = jnp.einsum("ij,ij->i", d_med, d)
+        cos_scat = jnp.sum(d_med * d, axis=-1)
         from .phase_ops import phase_eval
 
         p_scalar = jax.vmap(
@@ -191,9 +197,10 @@ def _make_bounce_canopy_polarized(
             )
         )(layer, cos_scat)
         M_full = jnp.einsum(
-            "bij,bjk->bik", rotator(rotate_basis_angle(l_out, h_out_s, b)), M_s
+            "bij,bjk->bik", rotator(rotate_basis_angle(l_out, h_out_s, b)), M_s,
+            precision=_HI,
         ) / jnp.maximum(p_scalar, 1e-30)[:, None, None]
-        P_med = jnp.einsum("bij,bjk->bik", P, M_full)
+        P_med = jnp.einsum("bij,bjk->bik", P, M_full, precision=_HI)
         b_med = h_in_s
         beta_med = beta * albedo_col
 
@@ -218,12 +225,12 @@ def _make_bounce_canopy_polarized(
                 ),
             }
         f_leaf = bilambertian_eval(lp, wi_sun_leaf, wo_leaf)
-        cos_sun_leaf = jnp.abs(jnp.einsum("ij,ij->i", n_shade, w_nee))
+        cos_sun_leaf = jnp.abs(jnp.sum(n_shade * w_nee, axis=-1))
         # unpolarized Stokes input is basis-invariant: no rotation needed
         S_in_leaf = jnp.zeros((B, 4)).at[:, 0].set(
             beta * f_leaf * cos_sun_leaf * E_nee
         )
-        S_leaf = jnp.einsum("bij,bj->bi", P, S_in_leaf)
+        S_leaf = jnp.einsum("bij,bj->bi", P, S_in_leaf, precision=_HI)
         d_leaf_local, w_leaf = jax.vmap(
             lambda r, t, w, us, uc: bilambertian_sample_from_uniforms(
                 {"reflectance": r, "transmittance": t}, w, us, uc
@@ -235,7 +242,8 @@ def _make_bounce_canopy_polarized(
         # weight w_leaf lives in beta, as for phase (M/p_scalar) and
         # surface (M/f_scalar) continuations
         P_leaf = jnp.einsum(
-            "bij,bjk->bik", P, depolarizer(jnp.ones_like(w_leaf))
+            "bij,bjk->bik", P, depolarizer(jnp.ones_like(w_leaf)),
+            precision=_HI,
         )
         b_leaf = default_basis(-d_leaf)
         beta_leaf = beta * w_leaf
@@ -252,7 +260,8 @@ def _make_bounce_canopy_polarized(
         mu_nee_g = jnp.maximum(w_nee[:, 2], 0.0)
         S_in_g = jnp.zeros((B, 4)).at[:, 0].set(beta * mu_nee_g * E_nee)
         S_ground = jnp.einsum(
-            "bij,bjk,bkl,bl->bi", P, R_out_srf, M_nee_srf, S_in_g
+            "bij,bjk,bkl,bl->bi", P, R_out_srf, M_nee_srf, S_in_g,
+            precision=_HI,
         )
 
         d_ground, w_g = bsdf_sample_from_uniforms(
@@ -267,7 +276,8 @@ def _make_bounce_canopy_polarized(
         R_out_c = rotator(rotate_basis_angle(wo, h_out_c, b))
         f_scalar = jnp.maximum(M_cont[:, 0, 0], 1e-30)
         P_ground = jnp.einsum(
-            "bij,bjk,bkl->bil", P, R_out_c, M_cont / f_scalar[:, None, None]
+            "bij,bjk,bkl->bil", P, R_out_c, M_cont / f_scalar[:, None, None],
+            precision=_HI,
         )
         b_ground = h_in_c
         beta_ground = beta * w_g
@@ -350,9 +360,8 @@ def trace_paths_canopy_polarized_regen(
     Like the scalar loop (``tracer_canopy.trace_paths_canopy_regen``),
     lanes are periodically permuted by the Morton code of the current
     position (``CANOPY_SORT_EVERY``) so ray blocks stay spatially coherent
-    for the sweep kernels' tile culling (+25% measured on the scalar
-    canopy; the Stokes state P/b travels with its lane, results are
-    bit-identical to the unsorted loop up to f32 summation grouping)."""
+    (the Stokes state P/b travels with its lane; results are identical to
+    the unsorted loop up to f32 summation grouping)."""
     from .tracer_canopy import _morton_u32, _sort_interval
 
     helpers = _canopy_helpers(
@@ -369,9 +378,7 @@ def trace_paths_canopy_polarized_regen(
     b_init = default_basis(-init_d)
     eye4 = jnp.broadcast_to(jnp.eye(4, dtype=dtype), (B, 4, 4))
     sort_every = _sort_interval()
-    from .canopy import leaf_bounds
-
-    box_lo, box_hi = leaf_bounds(leaves)
+    box_lo, box_hi = helpers["leaf_box"]
 
     def sample_key(lane_first_l, s_local):
         return derive_keys(config.rng, row_keys_b, lane_first_l + s_local)

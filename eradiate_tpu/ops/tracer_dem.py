@@ -80,12 +80,11 @@ def _make_bounce_dem(config: SceneConfig, medium_row, surface_row, dem, illum_ro
         return tau_at_z(z, z_levels, tau_levels)
 
     if tris is not None:
-        from .mesh import tri_accel, tri_nearest, tri_occluded
+        from .mesh import tri_bounds, tri_nearest, tri_occluded
 
-        # acceleration data is loop-invariant: build it once here rather
-        # than inside the while_loop body (XLA does not reliably hoist it)
-        _accel_probe = jnp.zeros((1, 3), dtype=z_levels.dtype)
-        accel = tri_accel(_accel_probe, tris)
+        # the AABB is loop-invariant: build it once here rather than
+        # inside the while_loop body (XLA does not reliably hoist it)
+        tri_box = tri_bounds(tris)
 
     def sun_T(pos):
         T_atm = jnp.exp(-(tau_top - tau_z(pos[:, 2])) / mu_sun)
@@ -95,7 +94,7 @@ def _make_bounce_dem(config: SceneConfig, medium_row, surface_row, dem, illum_ro
                 jnp.broadcast_to(w_sun, pos.shape),
                 jnp.full(pos.shape[0], shadow_range),
                 tris,
-                accel=accel,
+                bounds=tri_box,
             )
         else:
             _, hit = dem_intersect(
@@ -140,7 +139,7 @@ def _make_bounce_dem(config: SceneConfig, medium_row, surface_row, dem, illum_ro
             # candidate endpoint can land marginally short of a grazed
             # or boundary-coincident surface
             t_dem, n_tri, hit_dem = tri_nearest(
-                pos, d, t_cand * 1.02 + 1e-4, tris, accel=accel
+                pos, d, t_cand * 1.02 + 1e-4, tris, bounds=tri_box
             )
         else:
             t_dem, hit_dem = dem_intersect(
@@ -172,7 +171,7 @@ def _make_bounce_dem(config: SceneConfig, medium_row, surface_row, dem, illum_ro
 
         # ---- medium collision ------------------------------------------
         albedo_col = take_1d(medium_row.albedo, layer)
-        cos_nee = jnp.einsum("j,ij->i", d_sun, -d)
+        cos_nee = -jnp.sum(d_sun * d, axis=-1)
         p_nee = jax.vmap(
             lambda l, c: phase_eval(
                 config.phase_kinds, medium_row.phase_params,
@@ -199,7 +198,7 @@ def _make_bounce_dem(config: SceneConfig, medium_row, surface_row, dem, illum_ro
         wo_l = _to_local(n_srf, -d)
         wi_sun_l = _to_local(n_srf, jnp.broadcast_to(w_sun, d.shape))
         f_nee = bsdf_eval(config.surface_kind, surface_row.params, wi_sun_l, wo_l, pos_dem[:, :2])
-        cos_sun = jnp.maximum(jnp.einsum("ij,j->i", n_srf, w_sun), 0.0)
+        cos_sun = jnp.maximum(jnp.sum(n_srf * w_sun, axis=-1), 0.0)
         pos_dem_off = pos_dem + n_srf * eps
         L_dem = beta * r_dem * f_nee * cos_sun * sun_T(pos_dem_off) * E_sun
         d_srf_l, w_srf = bsdf_sample_from_uniforms(

@@ -43,6 +43,10 @@ from .scene_state import SceneConfig
 
 __all__ = ["render_polarized"]
 
+#: f32 Stokes/Mueller contractions run at full f32: a backend's default
+#: matmul precision may round operands (TF32 on recent NVIDIA GPUs).
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _phase_mueller(phase_kinds, phase_params, phase_weights, layer, cos_theta):
     """Blend-weighted Mueller phase matrix [..., 4, 4] in scattering-plane
@@ -172,7 +176,7 @@ def _make_bounce_polarized(config: SceneConfig, medium_row, surface_row, illum_r
         l_out = -d  # light leaves the vertex toward the sensor path
 
         # ---- NEE at the collision --------------------------------------
-        cos_nee = jnp.einsum("j,ij->i", d_sun, l_out)
+        cos_nee = jnp.sum(d_sun * l_out, axis=-1)
         h_in_nee, h_out_nee = _scatter_frames(
             jnp.broadcast_to(d_sun, d.shape), l_out
         )
@@ -191,7 +195,8 @@ def _make_bounce_polarized(config: SceneConfig, medium_row, surface_row, illum_r
             E_sun * sun_transmittance(z_col) * albedo_col * beta * r_col
         )
         S_col = jnp.einsum(
-            "bij,bjk,bkl,bl->bi", P, R_out, M_nee, S_sun
+            "bij,bjk,bkl,bl->bi", P, R_out, M_nee, S_sun,
+            precision=_HI,
         )
 
         # ---- sampled continuation --------------------------------------
@@ -208,7 +213,7 @@ def _make_bounce_polarized(config: SceneConfig, medium_row, surface_row, illum_r
             )
         )(layer, d, u_ph_sel, u_ph_cos, u_ph_phi)
         l_in_new = -d_new
-        cos_scat = jnp.einsum("ij,ij->i", d_new, d)
+        cos_scat = jnp.sum(d_new * d, axis=-1)
         p_scalar = jax.vmap(
             lambda l, c: phase_eval(
                 config.phase_kinds,
@@ -229,10 +234,10 @@ def _make_bounce_polarized(config: SceneConfig, medium_row, surface_row, illum_r
             )
         )(layer, cos_scat)
         alpha_out_s = rotate_basis_angle(l_out, h_out_s, b)
-        M_full = jnp.einsum("bij,bjk->bik", rotator(alpha_out_s), M_s) / jnp.maximum(
-            p_scalar, 1e-30
-        )[:, None, None]
-        P_col = jnp.einsum("bij,bjk->bik", P, M_full)
+        M_full = jnp.einsum(
+            "bij,bjk->bik", rotator(alpha_out_s), M_s, precision=_HI
+        ) / jnp.maximum(p_scalar, 1e-30)[:, None, None]
+        P_col = jnp.einsum("bij,bjk->bik", P, M_full, precision=_HI)
         b_col = h_in_s
         beta_col = beta * albedo_col * r_col
 
@@ -255,7 +260,8 @@ def _make_bounce_polarized(config: SceneConfig, medium_row, surface_row, illum_r
             beta * r_bnd * mu_sun * T_sun_bottom * E_sun
         )
         S_surf = jnp.einsum(
-            "bij,bjk,bkl,bl->bi", P, R_out_srf, M_nee_srf, S_sun_srf
+            "bij,bjk,bkl,bl->bi", P, R_out_srf, M_nee_srf, S_sun_srf,
+            precision=_HI,
         )
 
         # sampled continuation: light would come from d_srf (propagation
@@ -270,7 +276,8 @@ def _make_bounce_polarized(config: SceneConfig, medium_row, surface_row, illum_r
         R_out_c = rotator(rotate_basis_angle(wo, h_out_c, b))
         f_scalar = jnp.maximum(M_cont[:, 0, 0], 1e-30)
         P_surf = jnp.einsum(
-            "bij,bjk,bkl->bil", P, R_out_c, M_cont / f_scalar[:, None, None]
+            "bij,bjk,bkl->bil", P, R_out_c, M_cont / f_scalar[:, None, None],
+            precision=_HI,
         )
         b_surf = h_in_c
         beta_surf = beta * r_bnd * w_srf

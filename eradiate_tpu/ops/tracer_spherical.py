@@ -41,18 +41,16 @@ from .spherical import ray_sphere_intersect, shell_event
 __all__ = ["SphericalMediumArrays", "render_spherical"]
 
 
-#: Lane-count target for the spherical regenerative tracers. Swept on
-#: v5e (spp 32768, 15 angles): 2^14 lanes x quota ~30 beats 2^16 x quota 8
-#: (1.78 vs 1.48 M samples/s) — per-lane bounce cost halves at 64k lanes,
-#: but regeneration's tail amortization over a deep quota matters more;
-#: see docs/developer_guide/performance.md.
+#: Lane-count target for the spherical regenerative tracers: a deep
+#: regeneration quota (tail amortization) matters more than a wide lane
+#: pool, so the default pool is 2^14 lanes.
 SPHERICAL_LANES_TARGET = 2**14
 
-#: At 64k lanes the per-lane bounce cost halves (the Pallas shell flight
-#: wins 1.35x there; see docs/developer_guide/performance.md), but only
-#: when regeneration quotas stay deep — 64k lanes x quota 8 measured
-#: SLOWER than 16k x quota 30. The adaptive target takes the big pool
-#: only when the sample budget sustains quota >= ~24 at 64k lanes.
+#: A wider pool lowers the per-lane bounce cost, but only pays while
+#: regeneration quotas stay deep, so the adaptive target takes it only
+#: when the sample budget sustains quota >= ~24 at 64k lanes. Both sizes
+#: were tuned on the previous accelerator; a GPU sweep is an open item
+#: (ROADMAP, Speed).
 _LANES_HI = 2**16
 _QUOTA_DEEP = 24
 
@@ -76,7 +74,7 @@ class SphericalMediumArrays:
     #: optional precomputed sun slant-tau table [S, L+1, M] over
     #: (level radius, local sun cosine), built WITHOUT ground blockage
     #: (``sun_tau_table(..., r_ground=0)``) — the tracer applies the
-    #: exact cross-product blocked test and fetches via the two-hot MXU
+    #: exact cross-product blocked test and fetches via the two-hot matmul
     #: bilinear (:func:`eradiate_tpu.ops.spherical.sun_tau_fetch`).
     #: When present, NEE transmittance uses the table instead of the
     #: exact per-event slant recomputation: the round-5 ablation measured
@@ -180,7 +178,7 @@ def _make_event(config: SceneConfig, medium_row, surface_row, illum_row):
             )
         elif medium_row.sun_tau is not None:
             # table NEE: exact flight, then the sun slant tau from the
-            # precomputed (radius, local cosine) table — two-hot MXU
+            # precomputed (radius, local cosine) table — two-hot matmul
             # bilinear fetch, no [B, L] slant recomputation per event
             # (see SphericalMediumArrays.sun_tau for the measured cost/
             # accuracy trade). Ground blockage stays exact (the table is
@@ -249,7 +247,7 @@ def _make_event(config: SceneConfig, medium_row, surface_row, illum_row):
         # both the volume and surface NEE branches
         T_sun = jnp.exp(-jnp.minimum(tau_sun, 80.0))
 
-        cos_nee = jnp.einsum("j,ij->i", d_sun, -d)
+        cos_nee = -jnp.sum(d_sun * d, axis=-1)
         p_nee = jax.vmap(
             lambda w_at, p_at, c: phase_eval_at(
                 config.phase_kinds, medium_row.phase_params, w_at, p_at, c

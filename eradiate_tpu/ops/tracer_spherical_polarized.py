@@ -41,6 +41,10 @@ from .tracer_spherical import (
 
 __all__ = ["render_spherical_polarized"]
 
+#: f32 Stokes/Mueller contractions run at full f32: a backend's default
+#: matmul precision may round operands (TF32 on recent NVIDIA GPUs).
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_row):
     """Per-tentative-event Mueller-transport closure shared by the
@@ -82,10 +86,10 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
         t_exit = jnp.maximum(ttf, eps_t)
         t_max = jnp.minimum(t_ground, t_exit)
 
-        # exact free flight fused with the event-point sun slant tau
-        # (ops/spherical.shell_event): one Mosaic launch per event.
-        # With a precomputed sun-tau table on the medium, NEE
-        # transmittance fetches from it instead (two-hot MXU bilinear;
+        # exact free flight with the event-point sun slant tau
+        # (ops/spherical.shell_event). With a precomputed sun-tau table on
+        # the medium, NEE transmittance fetches from it instead (two-hot
+        # matmul bilinear;
         # see SphericalMediumArrays.sun_tau for cost/accuracy numbers).
         tau_s = -jnp.log1p(-u_dist)
         _lr = bool(getattr(config, "lr_flight", False))
@@ -156,7 +160,7 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
         l_out = -d
 
         # ---- NEE at accepted collisions --------------------------------
-        cos_nee = jnp.einsum("j,ij->i", d_sun, l_out)
+        cos_nee = jnp.sum(d_sun * l_out, axis=-1)
         _, h_out_nee = _scatter_frames(jnp.broadcast_to(d_sun, d.shape), l_out)
         M_nee = jax.vmap(
             lambda l, c: _phase_mueller(
@@ -174,7 +178,9 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
         S_sun = jnp.zeros((B, 4)).at[:, 0].set(
             E_sun * T_sun * albedo_col * beta * r_col
         )
-        S_col = jnp.einsum("bij,bjk,bkl,bl->bi", P, R_out, M_nee, S_sun)
+        S_col = jnp.einsum(
+            "bij,bjk,bkl,bl->bi", P, R_out, M_nee, S_sun, precision=_HI
+        )
 
         # ---- sampled continuation at accepted collisions ---------------
         d_new = jax.vmap(
@@ -190,7 +196,7 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
             )
         )(layer, d, u_ph_sel, u_ph_cos, u_ph_phi)
         l_in_new = -d_new
-        cos_scat = jnp.einsum("ij,ij->i", d_new, d)
+        cos_scat = jnp.sum(d_new * d, axis=-1)
         p_scalar = jax.vmap(
             lambda l, c: phase_eval(
                 config.phase_kinds,
@@ -211,9 +217,10 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
             )
         )(layer, cos_scat)
         M_full = jnp.einsum(
-            "bij,bjk->bik", rotator(rotate_basis_angle(l_out, h_out_s, b)), M_s
+            "bij,bjk->bik", rotator(rotate_basis_angle(l_out, h_out_s, b)), M_s,
+            precision=_HI,
         ) / jnp.maximum(p_scalar, 1e-30)[:, None, None]
-        P_col = jnp.einsum("bij,bjk->bik", P, M_full)
+        P_col = jnp.einsum("bij,bjk->bik", P, M_full, precision=_HI)
         b_col = h_in_s
         beta_col = beta * albedo_col * r_col
 
@@ -231,7 +238,8 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
             beta * r_bnd * mu_sun_srf * T_sun * E_sun
         )
         S_srf = jnp.einsum(
-            "bij,bjk,bkl,bl->bi", P, R_out_srf, M_srf, S_sun_srf
+            "bij,bjk,bkl,bl->bi", P, R_out_srf, M_srf, S_sun_srf,
+            precision=_HI,
         )
 
         d_srf_local, w_srf = bsdf_sample_from_uniforms(
@@ -245,7 +253,8 @@ def _make_event_polarized(config: SceneConfig, medium_row, surface_row, illum_ro
         R_out_c = rotator(rotate_basis_angle(l_out, h_out_c, b))
         f_scalar = jnp.maximum(M_cont[:, 0, 0], 1e-30)
         P_srf = jnp.einsum(
-            "bij,bjk,bkl->bil", P, R_out_c, M_cont / f_scalar[:, None, None]
+            "bij,bjk,bkl->bil", P, R_out_c, M_cont / f_scalar[:, None, None],
+            precision=_HI,
         )
         b_srf = h_in_c
         beta_srf = beta * r_bnd * w_srf

@@ -1,11 +1,14 @@
-"""Multi-host initialization for pod-slice runs.
+"""Multi-process initialization (several hosts, or several processes on
+one host).
 
 The reference is strictly single-host (its parallelism is the Mitsuba C++
 thread pool over image blocks, ``src/eradiate/kernel/_render.py:433-468``);
-this module is the TPU build's multi-host entry. On TPU pods
-``jax.distributed.initialize()`` discovers coordinator/process topology
-from the TPU environment automatically; on CPU/GPU fleets the caller (or
-``ERADIATE_TPU_COORDINATOR`` etc.) supplies it explicitly.
+this module is this build's multi-process entry. The caller (or
+``ERADIATE_TPU_COORDINATOR`` etc.) supplies the coordinator address, the
+process count and this process's id explicitly. When several processes
+share one host, give each its own GPU through ``local_device_ids``: a JAX
+process reserves most of a card's memory when it first uses it, so two
+processes must never open the same card.
 
 Usage (one call at program start, before any jax computation)::
 
@@ -36,13 +39,17 @@ def initialize(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
 ) -> bool:
-    """Initialize ``jax.distributed`` for a multi-host run.
+    """Initialize ``jax.distributed`` for a multi-process run.
 
     Parameters default to the ``ERADIATE_TPU_COORDINATOR`` /
-    ``ERADIATE_TPU_NUM_PROCESSES`` / ``ERADIATE_TPU_PROCESS_ID`` env vars;
-    on TPU pods all three may be omitted (the TPU runtime supplies the
-    topology). Safe to call twice and in single-process runs: returns
+    ``ERADIATE_TPU_NUM_PROCESSES`` / ``ERADIATE_TPU_PROCESS_ID`` /
+    ``ERADIATE_TPU_LOCAL_DEVICE_IDS`` (comma-separated) env vars. Without a
+    coordinator the run is single-process and nothing is initialized.
+    ``local_device_ids``: the local devices this process may use (e.g.
+    ``[process_id]`` for one process per GPU on a shared host); ``None``
+    lets the process see every local device. Safe to call twice: returns
     ``True`` when a multi-process backend is (already) up, ``False`` when
     running single-process.
     """
@@ -63,28 +70,27 @@ def initialize(
         num_processes = int(env_np)
     if process_id is None and env_pid is not None:
         process_id = int(env_pid)
+    env_ids = os.environ.get("ERADIATE_TPU_LOCAL_DEVICE_IDS")
+    if local_device_ids is None and env_ids:
+        local_device_ids = [int(i) for i in env_ids.split(",")]
 
-    on_tpu_pod = any(
-        v in os.environ for v in ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS")
-    )
-    if coordinator_address is None and not on_tpu_pod:
-        # single host, nothing to initialize
+    if coordinator_address is None:
+        # single process, nothing to initialize
         _initialized = True
         return False
 
-    explicit = coordinator_address is not None
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
     except (RuntimeError, ValueError) as exc:
-        # tolerable when the caller (or the TPU runtime) already
-        # initialized; fatal when an explicit coordinator was requested
-        # and we end up single-process anyway
+        # tolerable when the caller already initialized; fatal when we end
+        # up single-process anyway
         logger.warning("jax.distributed.initialize failed: %s", exc)
-        if explicit and jax.process_count() <= 1:
+        if jax.process_count() <= 1:
             raise RuntimeError(
                 "multi-host initialization was requested (coordinator "
                 f"{coordinator_address!r}) but failed — call "

@@ -2,7 +2,7 @@
 
 The reference has **no distributed backend** (its spectral/sensor loops are
 serial Python around the C++ kernel, ``src/eradiate/kernel/_render.py:433-468``);
-the TPU build creates the distributed layer. Every tracer family's
+this build creates the distributed layer. Every tracer family's
 ``render_batch_*_impl`` is wrapped in ``jax.shard_map`` over a 2D device mesh
 
     ("spectral", "sample")
@@ -63,8 +63,9 @@ def make_render_mesh(n_spectral: int = 1, n_sample: int | None = None, devices=N
 
     On a multi-host platform ``jax.devices()`` is the *global* device list;
     ``jax.experimental.mesh_utils`` lays the axes out so the inner (sample)
-    axis rides ICI within hosts and the spectral axis spans hosts/DCN —
-    the spectral axis needs no collectives, so DCN hops are free.
+    axis stays within hosts (NVLink between a host's GPUs) and the spectral
+    axis spans hosts — the spectral axis needs no collectives, so network
+    hops between hosts are free.
     """
     devices = devices if devices is not None else jax.devices()
     n_dev = len(devices)

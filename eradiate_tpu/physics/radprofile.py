@@ -4,7 +4,7 @@ Mirror of ``src/eradiate/radprops/_core.py`` / ``_atmosphere.py`` /
 ``_array.py``: a RadProfile evaluates collision coefficients on a
 :class:`~eradiate_tpu.physics.zgrid.ZGrid` for a batch of spectral indices.
 
-TPU-first difference: evaluation is *batched over the spectral axis* — every
+Difference: evaluation is *batched over the spectral axis* — every
 ``eval_*`` takes a wavelength array ``w_nm`` of shape (S,) and returns
 (S, Nz) arrays, ready to be fed to the device-resident spectral driver
 (the reference evaluates one spectral index at a time inside its serial

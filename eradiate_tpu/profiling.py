@@ -1,8 +1,8 @@
 """Profiling & performance counters.
 
 SURVEY §5 flags the reference's tracing story as minimal (tqdm progress
-gated by ``ProgressLevel``, ``config/_settings.py:14-61``) and directs the
-TPU build to make ``jax.profiler`` traces and per-kernel samples/s counters
+gated by ``ProgressLevel``, ``config/_settings.py:14-61``) and directs this
+build to make ``jax.profiler`` traces and per-kernel samples/s counters
 first-class. This module provides:
 
 - :func:`trace` — context manager around ``jax.profiler.trace`` writing a
@@ -20,7 +20,16 @@ import contextlib
 import dataclasses
 import time
 
-__all__ = ["trace", "annotate", "RenderStats", "stats", "timed_render"]
+__all__ = [
+    "trace",
+    "annotate",
+    "RenderStats",
+    "stats",
+    "timed_render",
+    "DEVICE_PEAKS",
+    "device_peaks",
+    "kernel_roofline",
+]
 
 
 @contextlib.contextmanager
@@ -116,30 +125,54 @@ def timed_render(label, fn, *, spectral_size, n_pixels, spp):
 # ---------------------------------------------------------------------------
 # Roofline accounting (BASELINE: kernels "profiled to speed-of-light")
 
-#: TPU v5e per-chip peaks (public spec: 197 TFLOP/s bf16 MXU, 819 GB/s
-#: HBM). The VPU f32 peak is an estimate (8 x 128 x 8 lanes x ~0.94 GHz
-#: x 2 FLOP/FMA ~ 3.9 TFLOP/s) — elementwise f32 work can never ride the
-#: MXU, so it rooflines against this much lower ceiling.
-V5E_PEAKS = {
-    "hbm_bytes_per_s": 819e9,
-    "mxu_bf16_flop_per_s": 197e12,
-    "vpu_f32_flop_per_s": 3.9e12,
+#: Published per-device peaks, keyed by ``jax.Device.device_kind``. Source:
+#: NVIDIA H100 SXM data sheet, dense rates without sparsity, at the full
+#: 700 W power limit (a card set below it cannot hold these clocks under
+#: load, so report its ``power.limit`` beside any fraction of these).
+#: ``fp32`` is the rate outside the tensor cores. A device that is not
+#: listed has no assumed peak.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "bf16_flop_per_s": 989e12,
+        "fp32_flop_per_s": 67e12,
+    },
 }
 
 
-def kernel_roofline(label, wall_s, flops, bytes_moved, unit="vpu_f32"):
+def device_peaks(device_kind: str | None = None) -> dict:
+    """Peaks of ``device_kind`` (default: the first JAX device's kind).
+    Raises ``ValueError`` for a device kind that is not in
+    :data:`DEVICE_PEAKS`."""
+    if device_kind is None:
+        import jax
+
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; "
+            "add its data-sheet rates to profiling.DEVICE_PEAKS"
+        ) from None
+
+
+def kernel_roofline(
+    label, wall_s, flops, bytes_moved, unit="fp32", device_kind=None
+):
     """Achieved-vs-peak accounting for one kernel invocation.
 
     ``flops``: analytic FLOP count of the invocation; ``bytes_moved``:
-    analytic HBM traffic (reads + writes of non-VMEM-resident operands);
-    ``unit``: which compute ceiling applies ("mxu_bf16" for matmul-lowered
-    work, "vpu_f32" for elementwise). Returns a dict with achieved rates,
-    fractions of peak, arithmetic intensity, and the bound resource
-    (whichever fraction is higher — that resource sets the kernel's
-    speed-of-light).
+    analytic device-memory traffic (reads + writes); ``unit``: which
+    compute ceiling applies ("bf16" for tensor-core matmuls, "fp32" for
+    elementwise f32 work); ``device_kind``: whose peaks (default: the
+    first JAX device). Returns a dict with achieved rates, fractions of
+    peak, arithmetic intensity, and the bound resource (whichever fraction
+    is higher — that resource sets the kernel's speed-of-light).
     """
-    peak_flops = V5E_PEAKS[f"{unit}_flop_per_s"]
-    peak_bw = V5E_PEAKS["hbm_bytes_per_s"]
+    peaks = device_peaks(device_kind)
+    peak_flops = peaks[f"{unit}_flop_per_s"]
+    peak_bw = peaks["hbm_bytes_per_s"]
     achieved_flops = flops / wall_s if wall_s > 0 else 0.0
     achieved_bw = bytes_moved / wall_s if wall_s > 0 else 0.0
     frac_compute = achieved_flops / peak_flops

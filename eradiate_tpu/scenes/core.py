@@ -3,7 +3,7 @@
 Mirror of the reference's scene-generation layer entry points
 (``src/eradiate/scenes/core.py``): users describe scenes with nested
 dicts carrying ``"type"`` keys (or attrs-style element instances); factories
-resolve them. The TPU-native difference (SURVEY §7.1 "scene IR"): elements
+resolve them. The difference (SURVEY §7.1 "scene IR"): elements
 do not expand to a Mitsuba kernel dict — they *compile to array pytrees*
 (:mod:`eradiate_tpu.ops.scene_state`) consumed directly by the jitted
 engine, and spectral parameters are evaluated batched over the full

@@ -1,7 +1,7 @@
 """Integrator configuration elements.
 
 Mirror of ``src/eradiate/scenes/integrators/`` (factory at
-``_core.py:11-20``). In the TPU build there is a single wavefront engine;
+``_core.py:11-20``). In this build there is a single wavefront engine;
 integrator elements select its compile-time options: path depth, Russian
 roulette start, moment (variance) output, Stokes (polarized) output.
 

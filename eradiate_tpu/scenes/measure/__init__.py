@@ -104,7 +104,7 @@ class Measure(SceneElement):
     @spp.validator
     def _spp_validator(self, attribute, value):
         # mirror of the reference's single-precision warning
-        # (scenes/measure/_core.py:177-184); the TPU engine's f32 noise
+        # (scenes/measure/_core.py:177-184); the engine's f32 noise
         # floor is quantified in tests/system/test_cross_gates.py
         # (TestF32NoiseFloor: <1e-5 at spp 131072 on deterministic scenes)
         import warnings

@@ -1,7 +1,7 @@
 """Shape scene elements.
 
 Mirror of ``src/eradiate/scenes/shapes/`` (factory at ``_core.py:15-23``:
-cuboid, rectangle, sphere, file_mesh, buffer_mesh). In the TPU engine the
+cuboid, rectangle, sphere, file_mesh, buffer_mesh). In this engine the
 1D geometries carry analytic ground/atmosphere shapes, so stand-alone shape
 elements exist for (a) triangle-mesh canopy/tree workloads and (b) scene
 construction parity. All shapes expose ``triangles() -> (vertices [V, 3],

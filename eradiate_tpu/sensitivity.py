@@ -55,11 +55,6 @@ Implementation notes:
   regeneration), which JAX differentiates in forward mode but not in
   reverse; with a handful of retrieval parameters, K jvp passes are the
   right tool anyway (reverse mode would pay checkpointed loop replay).
-- The Pallas kernels (spherical flight, leaf sweeps) define no JVP
-  rules, so this module renders with ``ERADIATE_NO_PALLAS=1`` — every
-  kernel has an XLA fallback with identical semantics (the A/B contract
-  pinned by the kernel parity tests). Expect spherical/canopy
-  sensitivity renders to run at the XLA-path rate.
 - Channels perturb the *compiled* scene pytree
   (:class:`~eradiate_tpu.ops.scene_state.SceneArrays`), not experiment
   constructor arguments — scene compilation is host-side Python and is
@@ -87,7 +82,6 @@ path.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 
@@ -468,8 +462,6 @@ def sensitivities(exp, wrt, spp=None, seed=0, mesh=None):
     has_gas = any(c[3] == "gas" for c in channels)
 
     out = {}
-    prev = os.environ.get("ERADIATE_NO_PALLAS")
-    os.environ["ERADIATE_NO_PALLAS"] = "1"
     # gas channels linearize scene COMPILATION by differencing two
     # compiles (base vs species-scaled); adaptive layer/shell merging
     # could regroup between them, so disable it for the duration
@@ -611,10 +603,6 @@ def sensitivities(exp, wrt, spp=None, seed=0, mesh=None):
                     )
             out[measure.id] = entry
     finally:
-        if prev is None:
-            os.environ.pop("ERADIATE_NO_PALLAS", None)
-        else:
-            os.environ["ERADIATE_NO_PALLAS"] = prev
         if merge_saved is not None:
             geo = exp.geometry
             if hasattr(geo, "layer_merge_tol"):

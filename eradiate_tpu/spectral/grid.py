@@ -8,7 +8,7 @@ spectral discretization driven by the operational mode —
   g-point quadrature (``grid.py:324``).
 
 ``select`` restricts the grid to an SRF's support; ``walk_indices`` yields
-the full list of spectral indexes, which the TPU spectral driver batches
+the full list of spectral indexes, which the spectral driver batches
 into device-resident arrays (unlike the reference's serial context loop).
 Wavelengths in nm.
 """

@@ -1,11 +1,11 @@
 """Multi-HOST distribution test: 2 OS processes x 4 CPU devices.
 
-The reference is strictly single-host; this exercises the TPU build's
+The reference is strictly single-host; this exercises this build's
 ``jax.distributed`` path end to end over localhost TCP (the CPU stand-in
-for DCN): every process holds the same host-side scene, inputs are placed
-as global arrays (``parallel.render._put_global``), the render runs on
-the global 8-device ("spectral", "sample") mesh, and outputs gather to
-every host (``_fetch``/``process_allgather``). Global sample-id slicing
+for the network between hosts): every process holds the same host-side
+scene, inputs are placed as global arrays (``parallel.render._put_global``),
+the render runs on the global 8-device ("spectral", "sample") mesh, and
+outputs gather to every host (``_fetch``/``process_allgather``). Global sample-id slicing
 makes the 2-host result equal the single-device render up to float
 summation order.
 """
@@ -75,8 +75,8 @@ _WORKER = textwrap.dedent(
         directions=jnp.asarray(dirs), target=jnp.zeros(3),
         ray_offset=jnp.nan,
     )
-    # mesh over the GLOBAL device list: spectral axis spans hosts (DCN),
-    # sample axis within hosts (ICI analog)
+    # mesh over the GLOBAL device list: spectral axis spans hosts,
+    # sample axis within hosts
     mesh = make_render_mesh(2, 4)
     result = render_sharded(
         scene, sensor, SceneConfig(), spp=32, seed=11, mesh=mesh

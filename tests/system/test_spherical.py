@@ -146,7 +146,7 @@ class TestSphericalExperiment:
         sample trajectories (the table only enters NEE transmittance),
         so the diff is PURE interpolation error — gate it
         deterministically, far below MC noise scales. Measured on
-        BASELINE c4 on TPU: max 7.6e-4; allow 2e-3 here."""
+        c4-like geometry: max 7.6e-4 measured; allow 2e-3 here."""
 
         def render(table):
             from eradiate_tpu.core.rng import SeedState

@@ -1,10 +1,9 @@
-"""Instanced (virtual-block) leaf sweeps == flattened sweeps.
+"""Instanced leaf sweeps == flattened sweeps.
 
 The instanced path stores the canonical cloud once and sweeps the union
-of translated copies (ops/canopy.InstancedLeafArrays; Pallas virtual-
-block grid / XLA instance scan). Since it tests the SAME disk set as the
-flattened cloud, nearest/occluded results must agree exactly (up to exact
-f32 tie handling, measure-zero)."""
+of translated copies (ops/canopy.InstancedLeafArrays; instance scan).
+Since it tests the SAME disk set as the flattened cloud, nearest/occluded
+results must agree exactly (up to exact f32 tie handling, measure-zero)."""
 
 import jax
 import jax.numpy as jnp
@@ -108,46 +107,6 @@ class TestInstancedEqualsFlattened:
         assert 0 < np.asarray(o_i).sum() < p.shape[0]
 
 
-class TestInstancedPallasInterpret:
-    """The virtual-block Pallas kernels in interpret mode (runs on CPU)
-    against the XLA instanced path."""
-
-    def test_nearest_interpret(self):
-        from eradiate_tpu.ops.pallas.leaf_intersect import (
-            ray_leaves_nearest_instanced_pallas,
-        )
-
-        inst, flat = _build()
-        p, d = _rays(seed=7)
-        t_max = jnp.full(p.shape[0], 100.0)
-        c = inst.canonical
-        t_p, n_p, h_p = ray_leaves_nearest_instanced_pallas(
-            p, d, t_max, c.centers, c.normals, c.radii, inst.offsets,
-            block_b=256, block_n=256, interpret=True,
-        )
-        t_x, n_x, h_x = leaf_nearest(p, d, t_max, flat)
-        np.testing.assert_array_equal(np.asarray(h_p), np.asarray(h_x))
-        np.testing.assert_allclose(
-            np.asarray(t_p), np.asarray(t_x), rtol=1e-5, atol=1e-6
-        )
-
-    def test_occluded_interpret(self):
-        from eradiate_tpu.ops.pallas.leaf_intersect import (
-            ray_leaves_occluded_instanced_pallas,
-        )
-
-        inst, flat = _build()
-        p, d = _rays(seed=9)
-        t_max = jnp.full(p.shape[0], 100.0)
-        c = inst.canonical
-        o_p = ray_leaves_occluded_instanced_pallas(
-            p, d, t_max, c.centers, c.normals, c.radii, inst.offsets,
-            block_b=256, block_n=256, interpret=True,
-        )
-        o_x = leaf_occluded(p, d, t_max, flat)
-        np.testing.assert_array_equal(np.asarray(o_p), np.asarray(o_x))
-
-
 class TestInstancedTris:
     """Instanced triangle sweeps == flattened (tree trunks at scale)."""
 
@@ -211,33 +170,3 @@ class TestInstancedTris:
         o_i = np.asarray(jax.jit(tri_occluded)(p, d, t_max, inst))
         o_f = np.asarray(jax.jit(tri_occluded)(p, d, t_max, flat))
         assert (o_i != o_f).mean() < 0.05
-
-    def test_pallas_interpret_matches_instanced_xla(self):
-        """The virtual-block kernel must match the XLA INSTANCED path
-        exactly (identical arithmetic: ray translated into the canonical
-        frame in both)."""
-        from eradiate_tpu.ops.mesh import tri_nearest
-        from eradiate_tpu.ops.pallas.tri_intersect import (
-            ray_tris_nearest_instanced_pallas,
-        )
-
-        inst, flat, off = self._build()
-        p, d = self._rays_at(off, seed=17)
-        t_max = jnp.full(p.shape[0], 50.0)
-        c = inst.canonical
-        t_p, n_p, h_p = ray_tris_nearest_instanced_pallas(
-            p, d, t_max, c.v0, c.e1, c.e2, inst.offsets,
-            block_b=256, block_n=256, interpret=True,
-        )
-        t_x, n_x, h_x = jax.jit(tri_nearest)(p, d, t_max, inst)
-        h_p = np.asarray(h_p)
-        h_x = np.asarray(h_x)
-        # kernel translates leaf positions by +offset, XLA path translates
-        # the ray by -offset: arithmetic differs at the ulp level, so a
-        # tiny flip rate remains even here
-        assert (h_p != h_x).mean() < 0.02
-        both = h_p & h_x
-        np.testing.assert_allclose(
-            np.asarray(t_p)[both], np.asarray(t_x)[both],
-            rtol=1e-4, atol=1e-5,
-        )

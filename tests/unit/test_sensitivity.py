@@ -124,17 +124,7 @@ class TestExactIdentities:
         m = exp.measures[0]
         ctx = exp.spectral_context(m)
         scene, sensor, config = exp.compile_scene(m, ctx)
-        import os
-
-        prev = os.environ.get("ERADIATE_NO_PALLAS")
-        os.environ["ERADIATE_NO_PALLAS"] = "1"
-        try:
-            plain = _render_norr(exp, scene, sensor, config, 256, 5)
-        finally:
-            if prev is None:
-                os.environ.pop("ERADIATE_NO_PALLAS", None)
-            else:
-                os.environ["ERADIATE_NO_PALLAS"] = prev
+        plain = _render_norr(exp, scene, sensor, config, 256, 5)
         np.testing.assert_allclose(res[m.id]["radiance"], plain, rtol=1e-6)
 
 
@@ -334,25 +324,19 @@ class TestTauChannel:
             scene, sensor, config = exp.compile_scene(m, ctx)
             # the lr path skips the sun-tau table — compare against the
             # exact-slant config so only lr_flight differs
-            import os as _os
-
-            _os.environ["ERADIATE_NO_PALLAS"] = "1"
-            try:
-                med = dataclasses.replace(
-                    scene.medium, sun_tau=None, mu_grid=None
-                )
-                scene = dataclasses.replace(scene, medium=med)
-                off = np.asarray(
-                    exp._render_one(scene, sensor, config, 256, 3,
-                                    mesh=None)["radiance"]
-                )
-                config_lr = dataclasses.replace(config, lr_flight=True)
-                on = np.asarray(
-                    exp._render_one(scene, sensor, config_lr, 256, 3,
-                                    mesh=None)["radiance"]
-                )
-            finally:
-                _os.environ.pop("ERADIATE_NO_PALLAS", None)
+            med = dataclasses.replace(
+                scene.medium, sun_tau=None, mu_grid=None
+            )
+            scene = dataclasses.replace(scene, medium=med)
+            off = np.asarray(
+                exp._render_one(scene, sensor, config, 256, 3,
+                                mesh=None)["radiance"]
+            )
+            config_lr = dataclasses.replace(config, lr_flight=True)
+            on = np.asarray(
+                exp._render_one(scene, sensor, config_lr, 256, 3,
+                                mesh=None)["radiance"]
+            )
             assert np.array_equal(off, on)
         finally:
             ert.set_mode("mono_single")
@@ -399,23 +383,18 @@ class TestCanopyChannels:
         (scene, sensor, config, leaf_params, leaves, tris,
          tri_params) = exp.compile_canopy_scene(m, ctx)
         config = dataclasses.replace(config, rr_depth=config.max_depth)
-        import os as _os
-
         eps = 0.02
-        _os.environ["ERADIATE_NO_PALLAS"] = "1"
-        try:
-            def at(d):
-                lp = dict(leaf_params)
-                lp["reflectance"] = lp["reflectance"] + d
-                raw = exp._render_canopy_raw(
-                    scene, lp, leaves, sensor, config, 4096, 11, None,
-                    tris, tri_params,
-                )
-                return np.asarray(raw["radiance"])
 
-            fd = (at(+eps) - at(-eps)) / (2 * eps)
-        finally:
-            _os.environ.pop("ERADIATE_NO_PALLAS", None)
+        def at(d):
+            lp = dict(leaf_params)
+            lp["reflectance"] = lp["reflectance"] + d
+            raw = exp._render_canopy_raw(
+                scene, lp, leaves, sensor, config, 4096, 11, None,
+                tris, tri_params,
+            )
+            return np.asarray(raw["radiance"])
+
+        fd = (at(+eps) - at(-eps)) / (2 * eps)
         np.testing.assert_allclose(jvp, fd, rtol=0.15, atol=2e-3)
 
     def test_leaf_channels_primal_matches_plain_render(self):
@@ -429,16 +408,10 @@ class TestCanopyChannels:
          tri_params) = exp.compile_canopy_scene(m, ctx)
         config = dataclasses.replace(config, rr_depth=config.max_depth,
                                      lr_flight=True)
-        import os as _os
-
-        _os.environ["ERADIATE_NO_PALLAS"] = "1"
-        try:
-            raw = exp._render_canopy_raw(
-                scene, leaf_params, leaves, sensor, config, 256, 3, None,
-                tris, tri_params,
-            )
-        finally:
-            _os.environ.pop("ERADIATE_NO_PALLAS", None)
+        raw = exp._render_canopy_raw(
+            scene, leaf_params, leaves, sensor, config, 256, 3, None,
+            tris, tri_params,
+        )
         np.testing.assert_allclose(
             res[m.id]["radiance"], np.asarray(raw["radiance"]), rtol=1e-6
         )
@@ -864,8 +837,8 @@ class TestShardedSensitivities:
 
 class TestSphericalGeometry:
     def test_jvp_through_spherical_tracer(self):
-        """The spherical path differentiates through the XLA (no-Pallas)
-        kernels; sensitivities() forces that branch itself."""
+        """The spherical path differentiates (forward mode) through the
+        shell flight and the exact slant depth."""
         exp = AtmosphereExperiment(
             geometry={"type": "spherical_shell"},
             illumination={"type": "directional", "zenith": 50.0,

@@ -1,4 +1,4 @@
-"""Unit tests: error-bounded adaptive shell merging + MXU interp fetch."""
+"""Unit tests: error-bounded adaptive shell merging + matmul interp fetch."""
 
 import numpy as np
 import pytest
@@ -53,7 +53,7 @@ class TestAdaptiveGroups:
     def test_slant_tau_error_bounded(self):
         """Worst-case tangent-ray |delta tau| stays under ~tol (measured
         0.7x tol over a 4000-ray fan in the round-4 bring-up)."""
-        from eradiate_tpu.ops.spherical import _slant_tau_exact_xla
+        from eradiate_tpu.ops.spherical import slant_tau_exact
 
         tol = 3e-3
         z, sigma = _profile()
@@ -73,7 +73,7 @@ class TestAdaptiveGroups:
         import jax
 
         f = jax.vmap(
-            lambda pp, ww, rr, ss: _slant_tau_exact_xla(pp[None], ww, rr, ss)[0],
+            lambda pp, ww, rr, ss: slant_tau_exact(pp[None], ww, rr, ss)[0],
             in_axes=(0, 0, None, None),
         )
         t_ref = np.asarray(
@@ -193,7 +193,7 @@ class TestExperimentWiring:
 
 class TestInterpFetchMXU:
     def test_matches_reference_interp(self, monkeypatch):
-        """Force the dense/MXU path on CPU and compare against the
+        """Force the dense/matmul path on CPU and compare against the
         gather-based reference interpolation."""
         import eradiate_tpu.ops.medium as med
 
@@ -292,7 +292,7 @@ class TestSunTauFetchMXU:
         import jax.numpy as jnp
 
         from eradiate_tpu.ops.spherical import (
-            _slant_tau_exact_xla,
+            slant_tau_exact,
             sun_mu_grid_warped,
             sun_tau_fetch_fast,
             sun_tau_table_grid,
@@ -319,7 +319,7 @@ class TestSunTauFetchMXU:
         p = jnp.stack([jnp.zeros(B), jnp.zeros(B), r], 1)
         w = jnp.stack([smu, jnp.zeros(B), mu], 1)
         ref = np.asarray(
-            _slant_tau_exact_xla(p, w, radii, sigma[0], r_ground=0.0)
+            slant_tau_exact(p, w, radii, sigma[0], r_ground=0.0)
         )
         # production consults the table only off the exact-blocked set;
         # the limb-grazing band (near-horizontal descending, tangent in
@@ -335,7 +335,7 @@ class TestSunTauFetchMXU:
         assert err.max() < 3e-2  # cusp band itself stays bounded
 
     def test_matches_lookup_at_off_node_points(self):
-        """The two-hot MXU bilinear fetch reproduces the gather-based
+        """The two-hot matmul bilinear fetch reproduces the gather-based
         lookup_sun_tau on the same table (the fetch is exact bilinear;
         the table's own terminator-cusp limit is documented in
         performance.md)."""
